@@ -1,11 +1,15 @@
 #!/usr/bin/env python
-"""Headline benchmark: sec/frame on bar17K_twist at the reference's
-canonical DOT configuration (FCR, BE, DOT 6 subdomains, warmStart 2,
-dt = 0.025, E = 1e5, nu = 0.4, rho = 1000 — input/bar17K_twist_DOT.txt),
-characteristic-gradient tolerance relTol = 1e-5.
+"""Headline benchmark: sec/frame on the bar17K-class twist bar at the
+reference's canonical DOT configuration (FCR, BE, DOT 6 subdomains,
+warmStart 2, dt = 0.025, E = 1e5, nu = 0.4, rho = 1000 — the settings of
+input/bar17K_twist_DOT.txt), characteristic-gradient tolerance
+relTol = 1e-5. The bar is generated (dot_tpu.scenes, 56x16x16 cells:
+86K tets, 16.5K verts); DOT_BENCH_SCRIPT names another scene script.
 
+Runs on a GPU only: on any other device it exits without a result.
 Prints ONE JSON line:
-  {"metric": ..., "value": N, "unit": "...", "vs_baseline": N, ...}
+  {"metric": ..., "value": N, "unit": "...", "vs_baseline": N,
+   "device": {"platform", "kind", "count", "name_power_limit"}, ...}
 
 `value` / `vs_baseline` are measured at STRICT reference semantics
 (h0Refresh 1: the frozen preconditioner is refactorized every time step,
@@ -17,18 +21,19 @@ can only cost iterations (guarded by
 test_stale_h0_still_converges_to_same_physics). Set DOT_BENCH_H0REFRESH
 to pin a single policy and skip the second measurement.
 
-Baseline: the reference repo publishes no numbers (BASELINE.md); the
-north-star target is >=5x lower sec/frame than 12-thread MKL/CHOLMOD CPU
-DOT on this scene. Two baselines are reported:
+Baseline: the reference repo publishes no numbers (BASELINE.md). Two
+ratios are reported against the MEASURED reference-binary run in
+BASELINE_CPU.json (9.349 s/frame for 200-frame bar17K_twist DOT6, built
+and run from the reference sources on 1 CPU core with netlib BLAS):
 
-- `vs_baseline_1core_measured`: against the MEASURED reference-binary
-  run in BASELINE_CPU.json (9.349 s/frame for 200-frame bar17K_twist
-  DOT6 on this host — built and run from the reference sources, but on
-  1 CPU core with netlib BLAS vs the paper's 6C/12T MKL machine).
-- `vs_baseline_12thread_est`: the honest headline — the measured 1-core
-  number divided by 6 (the conservative end of the 4-8x range a 6C/12T
-  MKL machine gains over this 1-core netlib build; see
-  baselines/README.md). `vs_baseline` carries THIS conservative figure.
+- `vs_baseline_1core_measured`: against that number as is;
+- `vs_baseline_12thread_est`: that number divided by 6 (the conservative
+  end of the 4-8x range a 6C/12T MKL machine gains over the 1-core
+  netlib build; see baselines/README.md). `vs_baseline` carries this.
+
+The baseline ran the reference's own bar17K mesh (17.3K verts), not the
+generated bar, so both ratios are approximate (`vs_baseline_exact_scene`
+is false) unless DOT_BENCH_SCRIPT names the reference scene.
 """
 
 import json
@@ -56,10 +61,15 @@ def _run(script, h0_refresh, warmup, frames):
 
 
 def main():
-    script = os.environ.get(
-        "DOT_BENCH_SCRIPT",
-        os.path.join(os.environ.get("DOT_DATA_ROOT", "/root/reference"),
-                     "input/bar17K_twist_DOT.txt"))
+    from dot_tpu import device
+    dev = device.require_gpu("bench.py")
+    dev["name_power_limit"] = device.card_name_and_power_limit()
+
+    script = os.environ.get("DOT_BENCH_SCRIPT")
+    if script is None:
+        from dot_tpu.scenes import write_bar_scene
+        script = write_bar_scene(os.path.join("output", "bench"), "bar17",
+                                 stepper="DOT 6")
     warmup = int(os.environ.get("DOT_BENCH_WARMUP", "3"))
     frames = int(os.environ.get("DOT_BENCH_FRAMES", "10"))
 
@@ -79,7 +89,7 @@ def main():
 
     # The measured baseline binary ran on 1 core with netlib BLAS; the
     # paper's machine was 6C/12T MKL. Divide by 6 (conservative end of
-    # the observed 4-8x multithread/MKL gain) for the honest headline.
+    # the observed 4-8x multithread/MKL gain) for the headline ratio.
     MT_SCALE = 6.0
     rec = {
         "metric": "sec_per_frame_bar17K_twist_DOT6",
@@ -88,7 +98,10 @@ def main():
         "vs_baseline": round(baseline / MT_SCALE / spf, 3),
         "vs_baseline_1core_measured": round(baseline / spf, 3),
         "vs_baseline_12thread_est": round(baseline / MT_SCALE / spf, 3),
+        "vs_baseline_exact_scene": os.path.basename(script)
+        == "bar17K_twist_DOT.txt",
         "h0_refresh": 1 if pinned is None else int(pinned),
+        "device": dev,
     }
     if spf_adaptive is not None:
         rec["value_adaptive_h0"] = round(spf_adaptive, 5)

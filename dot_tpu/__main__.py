@@ -13,8 +13,11 @@ from __future__ import annotations
 import argparse
 import sys
 
+from .device import device_line
+
 
 def main(argv=None):
+    """Run the CLI; simulation modes return the finished simulator."""
     ap = argparse.ArgumentParser(prog="dot_tpu")
     ap.add_argument("mode", help="0/10/100 sim, 1 diagnostic, 2 mesh proc")
     ap.add_argument("script", nargs="?", help="scene script .txt / sub-mode")
@@ -32,6 +35,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.mode in ("0", "10", "11", "100"):
+        print(f"device: {device_line()}", flush=True)
         from .config import Config
         from .dim2 import is_2d_shape
         if is_2d_shape(Config.load(args.script).shape):
@@ -45,7 +49,7 @@ def main(argv=None):
             print(f"done: {sim.frame}/{sim.frame_amt} 2D frames, "
                   f"{spf:.4f} s/frame")
             print(f"output: {sim.out}")
-            return
+            return sim
         from .sim import run_script
         # mode 0 = interactive (the reference's viewer window, main.cpp
         # mode 0); modes 10/100 stay headless/offline
@@ -62,6 +66,7 @@ def main(argv=None):
         if sim.viewer is not None:
             print(f"viewer still serving at {sim.viewer.url} — Ctrl-C to exit")
             sim.viewer.serve_forever()
+        return sim
     elif args.mode == "1":
         if args.script == "13":
             # diagMode 13: extract sysE rows from a log.txt into sysE.txt
@@ -142,7 +147,8 @@ def main(argv=None):
                 r = fn(system, x)
             jax.device_get(r)
             dt_ = (time.perf_counter() - t0) / reps
-            print(f"{sub}: {mesh.n_elem} elements, {dt_ * 1e3:.3f} ms/eval "
+            print(f"{sub} on {device_line()}: {mesh.n_elem} elements, "
+                  f"{dt_ * 1e3:.3f} ms/eval "
                   f"({mesh.n_elem / dt_ / 1e6:.1f} M elem/s)")
         elif sub == "gen2d":
             # 2D primitive generation (reference: Mesh.cpp:110-435 DIM==2

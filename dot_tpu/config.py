@@ -79,8 +79,8 @@ class Config:
     # dot_tpu extension: H0 rebuild cadence for the quasi-Newton steppers
     # (DOT/GSDD/LBFGS-H/HI/JH). The reference refactorizes every time
     # step (DOTTimeStepper.cpp:343) — cheap for CHOLMOD relative to its
-    # iteration cost; on TPU the rebuild+factorization is ~62% of a
-    # bar17K frame, so the frozen preconditioner may live across frames.
+    # iteration cost; here the rebuild+factorization can be a large share
+    # of a frame, so the frozen preconditioner may live across frames.
     # 1 = every step (reference semantics, default); k > 1 = refresh
     # every k frames; -1 = adaptive (refresh when the lagged iteration
     # count regresses past 1.5x the post-refresh baseline + 2, or after

@@ -8,7 +8,7 @@ cylinder, Mesh.cpp:110-435), the energies carry dim==2 branches
 (Energy.cpp, FixedCoRotEnergy.cpp, StableNHEnergy.cpp), SPD projection
 uses makePD2d (IglUtils.hpp:276-308), and the same Optimizer outer loop
 drives 6-dof triangle elements. The shipped binary is DIM=3; this module
-restores the 2D source capability TPU-natively:
+restores the 2D source capability:
 
 - geometry/kernels: `kernels/soa2d.py` (2x2 flip-SVD, sigma-space
   materials, 6x6 SPD element Hessians, SoA lanes);
@@ -19,7 +19,7 @@ restores the 2D source capability TPU-natively:
   Cholesky refactorized every Newton iteration (needRefactorize,
   FixedCoRotEnergy.cpp:285-295) — 2D scenes are orders of magnitude
   smaller than the tet scenes, so the dense whole-mesh factor is the
-  right TPU shape (one MXU batch, no partitioning needed).
+  right shape (one batched factorization, no partitioning needed).
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ from . import mesh_gen, scripts
 from . import io as meshio
 from .kernels import soa2d
 from .steppers.admm import ADMMPDStepper, _solve_sym2
-from .steppers.core import (F64, GRAVITY_Y, INNER_ITER_CAP,
+from .steppers.core import (F64, HIGHEST, GRAVITY_Y, INNER_ITER_CAP,
                             LINE_SEARCH_CAP, REL_EDEC_STOP, STATS_CAP,
                             StaticPytree, StepStats)
 
@@ -153,7 +153,8 @@ class Plan2D(NamedTuple):
     (reference partition semantics: DOTTimeStepper.cpp:618-797 at DIM=2
     via the dimension template DOTTimeStepper.cpp:853) — dense-only,
     because 2D scenes are orders of magnitude smaller than the tet
-    scenes (a few-hundred-dof subdomain matrix is one MXU tile batch)."""
+    scenes (a few-hundred-dof subdomain matrix is one small batched
+    factorization)."""
     n_parts: int
     n_local_max: int
     n2: int                       # 2 * n_local_max (padded)
@@ -275,7 +276,7 @@ def _finish_plan_2d(n_parts, n_elem, n_vert, part, locals_, dup,
     """Turn assembly tuples into the flat scalar scatter plan (shared by
     the overlapping element plan and the disjoint node plan)."""
     n_local_max = max(len(l) for l in locals_)
-    n2 = -(-2 * n_local_max // 64) * 64            # pad to TPU-tile friendly
+    n2 = -(-2 * n_local_max // 64) * 64            # pad to a multiple of 64
     n_local_max = n2 // 2
     local_to_global = np.zeros((n_parts, n_local_max), np.int32)
     local_valid = np.zeros((n_parts, n_local_max), bool)
@@ -883,7 +884,7 @@ class Newton2DStepper(StaticPytree):
         f, U, s, V = sys.fsvd(x)
         e = sys.energy(x, state.x_tilta, s)
         g = sys.gradient(x, state.x_tilta, fixed, f, U, s, V)
-        sqn_g = jnp.vdot(g.ravel(), g.ravel()).astype(F64)
+        sqn_g = jnp.vdot(g.ravel(), g.ravel(), precision=HIGHEST).astype(F64)
 
         rows = jnp.zeros((STATS_CAP, 3), F64)
         rows = rows.at[0].set(jnp.stack([jnp.zeros((), F64),
@@ -940,7 +941,8 @@ class Newton2DStepper(StaticPytree):
             # Optimizer.cpp:856-862): relative decrease against e_prev
             stopped = jnp.logical_or(
                 failed, (e_prev - e) / e_prev < REL_EDEC_STOP)
-            sqn_g = jnp.vdot(g_new.ravel(), g_new.ravel()).astype(F64)
+            sqn_g = jnp.vdot(g_new.ravel(), g_new.ravel(),
+                             precision=HIGHEST).astype(F64)
             it = it + 1
             row = jnp.stack([alpha.astype(F64), e.astype(F64), sqn_g])
             rows = rows.at[jnp.minimum(it, STATS_CAP - 1)].set(row)
@@ -979,7 +981,7 @@ class ADMMDD2D(StaticPytree):
     :1254-1344). Everything is batched DENSE: at 2D scene scale a
     subdomain is a few hundred dofs, so the interface weight matrices
     W_s, the consensus matrix, and the augmented local Hessians are
-    plain (P, n2p, n2p)/(ns2, ns2) arrays — one MXU batch each — and
+    plain (P, n2p, n2p)/(ns2, ns2) arrays — one batched op each — and
     the compact-W machinery of the 3D stepper would be pure overhead.
     Weights are refreshed once per time step from the incoming
     positions (the reference refreshes at step end — same states)."""
@@ -1156,7 +1158,7 @@ class ADMMDD2D(StaticPytree):
         return md * free2f
 
     def _w_matvec(self, Wm, free2f, aug):
-        y = jnp.einsum("pij,pj->pi", Wm, aug)
+        y = jnp.einsum("pij,pj->pi", Wm, aug, precision=HIGHEST)
         return y + (self._md2f(free2f) * aug.reshape(-1)).reshape(
             self.P, self.n2p)
 
@@ -1296,7 +1298,7 @@ class ADMMDD2D(StaticPytree):
         f, U, s, V = sys.fsvd(x)
         e = sys.energy(x, state.x_tilta, s)
         g = sys.gradient(x, state.x_tilta, fixed, f, U, s, V)
-        sqn_g = jnp.vdot(g.ravel(), g.ravel()).astype(F64)
+        sqn_g = jnp.vdot(g.ravel(), g.ravel(), precision=HIGHEST).astype(F64)
 
         # initDual: u = W^{-1}(g_global - g_local) on interface dofs
         # (dense batched solve of W + I_offdual; ADMMDDTimeStepper:736-796)
@@ -1431,7 +1433,8 @@ class ADMMDD2D(StaticPytree):
             Fz, Uz, sz, Vz = sys.fsvd(z_new)
             gg = sys.gradient(z_new, state.x_tilta, fixed, Fz, Uz, sz, Vz)
             ee = sys.energy(z_new, state.x_tilta, sz)
-            sqn = jnp.vdot(gg.ravel(), gg.ravel()).astype(F64)
+            sqn = jnp.vdot(gg.ravel(), gg.ravel(),
+                           precision=HIGHEST).astype(F64)
             it = it + 1
             row = jnp.stack([jnp.ones((), F64), ee.astype(F64), sqn])
             rows = rows.at[jnp.minimum(it, STATS_CAP - 1)].set(row)
@@ -1553,7 +1556,8 @@ class Sim2D:
         n = self.frame_amt if frames is None else min(
             frames, self.frame_amt - self.frame)
         t0 = time.perf_counter()
-        for _ in range(n):
+        t_warm = None
+        for i in range(n):
             if self.frame % self.save_every == 0:
                 self.save_status()
             rel = self._rel_tol(self.frame)
@@ -1561,7 +1565,11 @@ class Sim2D:
             self.state, (stats, sys_e) = self.stepper.step(self.state, rel)
             self._record(self.frame, stats, sys_e, tol)
             self.frame += 1
+            if i == 0:
+                t_warm = time.perf_counter()  # first frame pays the compile
         wall = time.perf_counter() - t0
+        self.steady_spf = ((time.perf_counter() - t_warm) / (n - 1)
+                           if n > 1 else wall)
         if not self.mute:
             print(f"ran {n} 2D frames in {wall:.3f}s "
                   f"({wall / max(n, 1):.4f} s/frame)")

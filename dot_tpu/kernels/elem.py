@@ -2,7 +2,7 @@
 and the 12x12 SPD-projected element Hessian.
 
 The implementation lives in `soa.py` (structure-of-arrays scalar form —
-the TPU-native layout); this module provides the array-of-structures API
+the layout the steppers run); this module provides the array-of-structures API
 used by tests and by host-side precompute. See soa.py for the
 reference-mapping documentation (Energy.cpp:294-780, 1129-1271).
 """

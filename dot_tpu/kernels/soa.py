@@ -1,13 +1,14 @@
 """Structure-of-arrays kernel core: all 3x3/12x12 element math as unrolled
 scalar ops over long element vectors.
 
-WHY: on TPU, batched (N, 3, 3) matmuls and scatter-updates pad the trailing
-dims to MXU/VPU tiles (3 -> 128), wasting ~40x memory traffic and ~1800x
-MXU work. The SoA form — each matrix component a separate (N,) lane-major
-vector — makes the whole chain (F -> flip-SVD -> Psi/P -> rank-1 Hessian)
-one fused elementwise VPU kernel. This is the same formulation as the
-reference's AVX2 batch kernel (src/Utils/SVD_EFTYCHIOS/, SoA buffers at
-main.cpp:521-597), which is the natural TPU shape.
+WHY: batched (N, 3, 3) matmuls make tiny, badly shaped matrix problems
+for any accelerator's matrix units, and arrays with a trailing dim of 3
+move poorly through memory. The SoA form — each matrix component a
+separate contiguous (N,) vector — makes the whole chain (F -> flip-SVD ->
+Psi/P -> rank-1 Hessian) one fused elementwise kernel with coalesced
+loads. This is the same formulation as the reference's AVX2 batch kernel
+(src/Utils/SVD_EFTYCHIOS/, SoA buffers at main.cpp:521-597). Whether it
+also wins on the GPU is open (ROADMAP Queue 1.9).
 
 Conventions:
   mat3 : tuple of 9 (N,) arrays, row-major (m00, m01, ..., m22)
@@ -435,8 +436,7 @@ _SUM_SIGMA_EPS = 1.0e-6  # reference: Energy.cpp:1112-1117
 
 def defgrad_soa(xT, conn, g):
     """xT: (3, nV); conn: 4-tuple of (N,) corner index vectors (contiguous
-    per corner — column slices of an (N, 4) array are lane-padded strided
-    reads on TPU and triple the gather cost); g: mat3 tuple of restTriInv.
+    per corner — column slices of an (N, 4) array are strided reads); g: mat3 tuple of restTriInv.
     Returns F mat3 with F = Xt @ G, Xt columns = x_k - x_0."""
     if not isinstance(conn, (tuple, list)):
         conn = tuple(conn[:, c] for c in range(4))

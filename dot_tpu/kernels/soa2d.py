@@ -4,10 +4,9 @@ materials, per-element gradient and 6x6 SPD-projected Hessian.
 The reference is dimension-templated end-to-end (Mesh<2> + the dim == 2
 branches of Energy.cpp / FixedCoRotEnergy.cpp / StableNHEnergy.cpp, the
 2x2 AutoFlipSVD, and IglUtils::makePD2d, IglUtils.hpp:276-308); this
-module is the TPU-native dim-2 instantiation, built in the same
+module is the dim-2 instantiation, built in the same
 structure-of-arrays scalar form as the 3D kernels in soa.py (batched
-(N,) lanes; no (N, 2, 2) matmuls — TPU pads trailing tiny dims to
-hardware tiles).
+(N,) vectors; no (N, 2, 2) matmuls — see soa.py for why).
 
 Conventions: a 2x2 matrix is a 4-tuple (m00, m01, m10, m11) of (N,)
 arrays; sigma = (s0, s1) with s0 >= |s1| and s1 signed negative under

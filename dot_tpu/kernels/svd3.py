@@ -1,7 +1,7 @@
 """Batched 3x3 symmetric eigendecomposition and flip-SVD (AoS API).
 
 The compute core is the SoA formulation in `soa.py` (see its docstring for
-the TPU layout rationale and the reference mapping —
+the layout rationale and the reference mapping —
 src/Utils/AutoFlipSVD.hpp, src/Utils/SVD_EFTYCHIOS/). These wrappers
 unpack (..., 3, 3) arrays into component tuples and back.
 

@@ -1,6 +1,6 @@
 """Host-side mesh state and precompute (numpy).
 
-The TPU-native analog of the reference's Mesh<3> (src/Mesh.{hpp,cpp}):
+The analog of the reference's Mesh<3> (src/Mesh.{hpp,cpp}):
 everything static — rest-shape inverses, volumes, lumped masses, Lame
 fields, scatter plans, characteristic-tolerance geometry — is computed
 once on the host as plain numpy arrays, then shipped to the device as
@@ -153,8 +153,9 @@ def resolve_input_path(path, search_dirs=()):
     cands = [path]
     for d in search_dirs:
         cands.append(os.path.join(d, path))
-    root = os.environ.get("DOT_DATA_ROOT", "/root/reference")
-    cands.append(os.path.join(root, path))
+    root = os.environ.get("DOT_DATA_ROOT")
+    if root:
+        cands.append(os.path.join(root, path))
     for c in cands:
         probe = c if not c.endswith(".node") else c
         if os.path.exists(probe) or os.path.exists(probe + ".node"):

@@ -1,13 +1,19 @@
-"""ctypes loader for the native host-runtime kernels (native/planops.cpp).
+"""ctypes loader for the native host-runtime kernels (native/planops.cpp,
+native/mlkway.cpp).
 
-Compiles the shared library on first use (g++ -O3, cached next to the
-source) and exposes numpy-typed wrappers. Every entry point has a pure
-numpy fallback so the framework still works without a toolchain.
+Compiles the shared library on first use (g++ -O3 for generic x86-64, so
+a checkout copied to another host still loads it) and exposes
+numpy-typed wrappers. The library's file name carries a hash of its
+sources and flags, so a library built from other sources is never
+reused. The sort/plan helpers fall back to numpy (same output); the
+k-way partitioner has no fallback and raises when the library cannot be
+built or loaded.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 
@@ -16,46 +22,59 @@ import numpy as np
 _HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRCS = [os.path.join(_HERE, "native", "planops.cpp"),
          os.path.join(_HERE, "native", "mlkway.cpp")]
-_SO = os.path.join(_HERE, "native", "libplanops.so")
+_FLAGS = ["-O3", "-shared", "-fPIC"]
 
 _lib = None
-_tried = False
 
 
-def _load():
-    global _lib, _tried
-    if _tried:
+def _so_path():
+    h = hashlib.sha1(" ".join(_FLAGS).encode())
+    for src in _SRCS:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(_HERE, "native",
+                        f"libplanops-{h.hexdigest()[:12]}.so")
+
+
+def load():
+    """The native library, built on first use. Raises OSError or
+    subprocess.CalledProcessError when it cannot be built or loaded."""
+    global _lib
+    if _lib is not None:
         return _lib
-    _tried = True
+    so = _so_path()
+    if not os.path.exists(so):
+        tmp = f"{so}.{os.getpid()}.tmp"
+        subprocess.run(["g++", *_FLAGS, *_SRCS, "-o", tmp],
+                       check=True, capture_output=True)
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(so)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    lib.sort_unique_inverse_i64.restype = ctypes.c_int64
+    lib.sort_unique_inverse_i64.argtypes = [i64p, ctypes.c_int64,
+                                            i32p, i32p, i64p]
+    lib.build_block_plan.restype = ctypes.c_int64
+    lib.build_block_plan.argtypes = [i32p, i32p, i32p, ctypes.c_int64,
+                                     ctypes.c_int64, i32p, i32p, i64p]
+    lib.partition_mesh_dual.restype = ctypes.c_int64
+    lib.partition_mesh_dual.argtypes = [i32p, ctypes.c_int64,
+                                        ctypes.c_int32, ctypes.c_double,
+                                        i32p]
+    lib.partition_mesh_dual_w.restype = ctypes.c_int64
+    lib.partition_mesh_dual_w.argtypes = [i32p, ctypes.c_int64,
+                                          ctypes.c_int32,
+                                          ctypes.c_double, i32p, i32p]
+    _lib = lib
+    return lib
+
+
+def _load_or_none():
+    """The library for helpers that have a numpy fallback."""
     try:
-        src_mtime = max(os.path.getmtime(s) for s in _SRCS)
-        if (not os.path.exists(_SO)
-                or os.path.getmtime(_SO) < src_mtime):
-            subprocess.run(
-                ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                 *_SRCS, "-o", _SO],
-                check=True, capture_output=True)
-        lib = ctypes.CDLL(_SO)
-        i64p = ctypes.POINTER(ctypes.c_int64)
-        i32p = ctypes.POINTER(ctypes.c_int32)
-        lib.sort_unique_inverse_i64.restype = ctypes.c_int64
-        lib.sort_unique_inverse_i64.argtypes = [i64p, ctypes.c_int64,
-                                                i32p, i32p, i64p]
-        lib.build_block_plan.restype = ctypes.c_int64
-        lib.build_block_plan.argtypes = [i32p, i32p, i32p, ctypes.c_int64,
-                                         ctypes.c_int64, i32p, i32p, i64p]
-        lib.partition_mesh_dual.restype = ctypes.c_int64
-        lib.partition_mesh_dual.argtypes = [i32p, ctypes.c_int64,
-                                            ctypes.c_int32, ctypes.c_double,
-                                            i32p]
-        lib.partition_mesh_dual_w.restype = ctypes.c_int64
-        lib.partition_mesh_dual_w.argtypes = [i32p, ctypes.c_int64,
-                                              ctypes.c_int32,
-                                              ctypes.c_double, i32p, i32p]
-        _lib = lib
-    except Exception:
-        _lib = None
-    return _lib
+        return load()
+    except (OSError, subprocess.CalledProcessError):
+        return None
 
 
 def _ptr(arr, ctype):
@@ -73,7 +92,7 @@ def sort_unique_inverse(keys: np.ndarray):
     the sorted-segment-sum plan for a multiset of destinations."""
     keys = np.ascontiguousarray(keys, dtype=np.int64)
     n = keys.shape[0]
-    lib = _load()
+    lib = _load_or_none()
     if lib is None or n == 0:
         return _numpy_sui(keys)
     perm = np.empty(n, dtype=np.int32)
@@ -95,12 +114,12 @@ def partition_mesh_dual(tets: np.ndarray, n_parts: int,
     (optional int (nE,), non-negative) balances per-element weight instead
     of element count — the vwgt role of the reference's USE_METIS 3/4
     schemes (ADMMDDTimeStepper.cpp:98-152). Returns
-    (part_ids int32 (nE,), edge_cut) or None if the native library is
-    unavailable (callers fall back to RCB)."""
+    (part_ids int32 (nE,), edge_cut), or None when the partitioner
+    reports failure; raises when the native library cannot be loaded."""
     tets = np.ascontiguousarray(tets, dtype=np.int32)
     n_elem = tets.shape[0]
-    lib = _load()
-    if lib is None or n_elem == 0 or n_parts <= 0:
+    lib = load()
+    if n_elem == 0 or n_parts <= 0:
         return None
     out = np.empty(n_elem, dtype=np.int32)
     if elem_wgt is None:
@@ -127,7 +146,7 @@ def block_plan(sbd: np.ndarray, row: np.ndarray, col: np.ndarray, n3: int):
     row = np.ascontiguousarray(row, dtype=np.int32)
     col = np.ascontiguousarray(col, dtype=np.int32)
     n_t = sbd.shape[0]
-    lib = _load()
+    lib = _load_or_none()
     if lib is not None and n_t > 0:
         n = n_t * 9
         perm = np.empty(n, dtype=np.int32)

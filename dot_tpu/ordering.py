@@ -2,7 +2,7 @@
 
 The reference reaches large meshes through CHOLMOD's fill-reducing AMD
 ordering + supernodal sparse factors (reference: CHOLMODSolver.cpp:136-163).
-The TPU-native equivalent used here: reverse Cuthill-McKee (RCM) per
+The equivalent used here: reverse Cuthill-McKee (RCM) per
 subdomain, which concentrates the (already nearly banded, because
 subdomains are geometrically compact) sparsity into a band of width b,
 so the padded dense (n3, n3) Cholesky becomes a BLOCK-TRIDIAGONAL one

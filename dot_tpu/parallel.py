@@ -1,7 +1,7 @@
 """Multi-chip sharding layer: device-mesh placement rules for the
 framework's model-parallel axis (the subdomain axis `sbd`).
 
-Design (TPU-first, replaces the reference's TBB shared-memory element
+Design (replaces the reference's TBB shared-memory element
 parallelism, Energy.cpp:309-324, and its per-subdomain thread pools):
 
 - Elements are reordered SUBDOMAIN-CONTIGUOUS with equal padding per
@@ -14,7 +14,9 @@ parallelism, Energy.cpp:309-324, and its per-subdomain thread pools):
   diagonals, local index images) shards on its P axis.
 - Vertex-sized global fields (positions, velocities, masses) stay
   replicated; the vertex scatter-reduce of per-element gradients is
-  XLA's collective to insert (an all-reduce-by-segment over ICI).
+  XLA's collective to insert (an all-reduce over the device
+  interconnect — NVLink on a 4-H100 host, which links every pair of
+  cards, so a flat 1-D mesh is the right shape).
 
 Because System/steppers are keyed pytrees (core.StaticPytree), the
 placement rules are written against ATTRIBUTE NAMES and apply to any
@@ -169,7 +171,8 @@ def shard_for_step(stepper, state, mesh, axis="sbd"):
 
 
 # ---------------------------------------------------------------------------
-# collective-traffic accounting (what moves over ICI per step program)
+# collective-traffic accounting (what moves between devices per step
+# program)
 # ---------------------------------------------------------------------------
 _COLLECTIVE_OPS = ("all-reduce", "all-gather", "reduce-scatter",
                    "collective-permute", "all-to-all")

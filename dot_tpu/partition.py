@@ -11,7 +11,7 @@ ADMMDDTimeStepper.cpp:88-443, DOTTimeStepper.cpp:37-235) with:
   per-element 12x12 Hessians (plus interface-completion blocks and lumped
   mass) into padded dense per-subdomain matrices with ONE sorted
   segment-sum on device. CHOLMOD's sparse factorization becomes a batched
-  dense Cholesky on the MXU.
+  dense or banded Cholesky.
 
 Interface completion follows DOTTimeStepper::fillInDecomposedHessians
 (reference: DOTTimeStepper.cpp:618-797): each subdomain's matrix gets, at
@@ -151,17 +151,18 @@ def element_partition(mesh, n_parts, scheme=1):
     (native/mlkway.cpp — the METIS_PartMeshDual role, contiguous +
     balanced + min edge-cut; METIS.hpp:109-160), cross-checked against
     RCB (which wins on box-like geometry where planar cuts are optimal);
-    the smaller-interface partition is kept. Falls back to RCB when the
-    native library is unavailable.
+    the smaller-interface partition is kept. Returns (part ids, name of
+    the partitioner that produced them: "single", "slice", "kway" or
+    "rcb"). Raises when the native library cannot be loaded.
 
     `scheme` mirrors the reference's compile-time USE_METIS selector
     (ADMMDDTimeStepper.cpp:88-152): 1 uniform k-way (default), 2 axis
     slabs (partMesh_slice), 3 k-way weighted by distance-to-surface,
     4 k-way weighted by vertex valence."""
     if n_parts == 1:
-        return np.zeros(mesh.n_elem, dtype=np.int32)
+        return np.zeros(mesh.n_elem, dtype=np.int32), "single"
     if scheme == 2:
-        return slice_partition(mesh, n_parts)
+        return slice_partition(mesh, n_parts), "slice"
     wgt = None
     if scheme == 3:
         wgt = surface_distance_weights(mesh)
@@ -173,15 +174,15 @@ def element_partition(mesh, n_parts, scheme=1):
     rcb = rcb_partition(cent, n_parts)
     res = native.partition_mesh_dual(mesh.conn, n_parts, elem_wgt=wgt)
     if res is None:
-        return rcb   # count-balanced stand-in when native is unavailable
+        return rcb, "rcb"
     ml, _cut = res
     if len(np.unique(ml)) != n_parts:   # plan machinery needs all parts
-        return rcb
+        return rcb, "rcb"
     if wgt is not None:
-        return ml    # RCB is count-balanced; not comparable under weights
+        return ml, "kway"  # RCB is count-balanced; not comparable
     i_ml = _interface_count(mesh.conn, ml, mesh.n_vert, n_parts)
     i_rcb = _interface_count(mesh.conn, rcb, mesh.n_vert, n_parts)
-    return ml if i_ml <= i_rcb else rcb
+    return (ml, "kway") if i_ml <= i_rcb else (rcb, "rcb")
 
 
 @dataclasses.dataclass
@@ -252,6 +253,7 @@ class SubdomainPlan:
     band_ub_col: np.ndarray = None      # (nUB,) flat slot sbd*nmax + vcol
     band_diag_ub: np.ndarray = None     # indices of diagonal (v,v) blocks
     band_pad_diag: np.ndarray = None    # dests of padding-row unit diags
+    partitioner: str = ""               # which partitioner made `part`
 
 
 def build_plan(mesh, n_parts, pad_elem_to=256, pad_n3_to=384,
@@ -262,14 +264,14 @@ def build_plan(mesh, n_parts, pad_elem_to=256, pad_n3_to=384,
     With `banded` (default), each subdomain's local vertices are RCM-
     reordered and — when the resulting band is narrow enough to pay off
     (>= 3 diagonal blocks) — banded scatter destinations are emitted so
-    the factorization can run block-tridiagonally (the TPU replacement
+    the factorization can run block-tridiagonally (the replacement
     for CHOLMOD's fill-reducing supernodal factorization,
     reference: CHOLMODSolver.cpp:136-163).
     """
     conn = mesh.conn
     n_elem, n_vert = mesh.n_elem, mesh.n_vert
 
-    part = element_partition(mesh, n_parts, scheme=scheme)
+    part, partitioner = element_partition(mesh, n_parts, scheme=scheme)
 
     # --- element reorder + pad to equal slabs -------------------------
     by_part = [np.where(part == p)[0] for p in range(n_parts)]
@@ -488,6 +490,7 @@ def build_plan(mesh, n_parts, pad_elem_to=256, pad_n3_to=384,
         band_bs=band_bs, band_nb=band_nb, band_dest=band_dest,
         band_ub_row=band_ub_row, band_ub_col=band_ub_col,
         band_diag_ub=band_diag_ub, band_pad_diag=band_pad,
+        partitioner=partitioner,
     )
 
 
@@ -842,6 +845,7 @@ def build_node_plan(mesh, n_parts, pad_elem_to=256, pad_n3_to=384):
         asm_tuple_perm=tuple_perm, asm_block_stage1=stage1,
         asm_ub_dest=ub_dest,
         gath_perm=gath_perm, gath_segids=l2g_flat[gath_perm].astype(np.int32),
+        partitioner="rcb-nodes" if n_parts > 1 else "single",
     )
 
 

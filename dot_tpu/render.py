@@ -5,7 +5,7 @@ GIF encoder (reference: main.cpp:955-978 screenshot/GIF capture,
 src/Utils/GIF.hpp): every saved frame's surface mesh can be rasterized
 to a PNG and the sequence assembled into an animated GIF — but fully
 headless (pure numpy z-buffer rasterizer, no GL), which is the only
-sensible form on a TPU host.
+sensible form on a headless accelerator host.
 
 Rendering model: orthographic projection along -z (the reference's
 default `view orthographic` camera), flat shading from a fixed headlight,

@@ -8,8 +8,8 @@ D0Type at LBFGSTimeStepper.hpp:21-27):
   H  : H0 = full start-of-step Hessian, refactorized after each time step
        (LBFGSTimeStepper.cpp:302-307). Here: the P=1 dense system.
   HI : reference uses an incomplete Cholesky of the same matrix
-       (LBFGSTimeStepper.cpp:214-233). Incomplete sparse factorization has
-       no TPU-native analog; the same role (cheaper, approximate factor of
+       (LBFGSTimeStepper.cpp:214-233). There is no batched incomplete
+       sparse factorization here; the same role (cheaper, approximate factor of
        the same matrix) is played by a reduced-precision (bfloat16) dense
        Cholesky — documented substitution.
   JH : H0 = block-Jacobi Hessian over a disjoint NODE partition, per-block

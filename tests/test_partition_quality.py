@@ -70,7 +70,7 @@ def test_partition_contiguous(mesh):
 def test_partition_beats_or_ties_rcb_interface(mesh):
     """The point of the multilevel partitioner: fewer duplicated interface
     vertices than plain coordinate bisection (H0 quality gate)."""
-    part = partition.element_partition(mesh, 6)
+    part, _ = partition.element_partition(mesh, 6)
     cent = mesh.V_rest[mesh.conn].mean(axis=1)
     rcb = partition.rcb_partition(cent, 6)
     i_sel = partition._interface_count(mesh.conn, part, mesh.n_vert, 6)

@@ -22,7 +22,7 @@ BUNNY = ref_path("input", "tetMeshes", "bunny5K.msh")
 
 @pytest.mark.skipif(not os.path.exists(BUNNY), reason="reference data absent")
 def test_bunny5k_two_frames_f32():
-    """Two DOT6 frames on the real bunny5K mesh, f32 (the TPU compute
+    """Two DOT6 frames on the real bunny5K mesh, f32 (the GPU compute
     dtype): sysE must decrease smoothly and the step must converge
     without line-search failures."""
     cfg = Config(energy="FCR", time_stepper="DOT", partition_amt=6,

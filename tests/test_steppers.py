@@ -90,7 +90,7 @@ def test_hang_under_gravity_energy_dissipation():
 
 
 def test_f32_pipeline_runs():
-    """The TPU production dtype must run the same scene without NaNs and
+    """The GPU production dtype must run the same scene without NaNs and
     converge to the (f32-appropriate) tolerance."""
     mesh, cfg, sd = _scene("stretch")
     plan = partition.build_plan(mesh, 4, pad_elem_to=16, pad_n3_to=48)

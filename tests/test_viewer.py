@@ -15,7 +15,7 @@ from dot_tpu.viewer import LiveViewer, surface_face_parts
 
 def test_viewer_endpoints_and_control():
     mesh = bar_mesh(6, 3, 3)
-    part = partition.element_partition(mesh, 3)
+    part, _ = partition.element_partition(mesh, 3)
     fp = surface_face_parts(mesh, part)
     assert fp.shape == (mesh.SF.shape[0],)
     assert set(np.unique(fp)) <= set(range(3))

@@ -1,7 +1,7 @@
 """Collect per-scene results from run directories into a markdown table
 (the tb1-tb5 / otherMethods evaluation summary).
 
-    python tools/results_table.py output/dirA output/dirB ... > docs/RESULTS.md
+    python tools/results_table.py output/dirA output/dirB ... > results.md
 
 Each run directory must contain config.txt, iterStats.txt, log.txt and
 (after finalize) info.txt. sec/frame is taken from the `sec_per_frame`

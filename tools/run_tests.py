@@ -7,8 +7,7 @@ crash site is below Python, inside backend_compile_and_load, and moves
 with the host/compile mix, so no per-test workaround is reliable
 (tests/conftest.py:subprocess_isolated documents the single worst
 offender). Sharding per FILE keeps every process well under the
-threshold while amortizing imports, and the persistent JAX compile
-cache (dot_tpu/__init__.py) makes repeat runs cheap.
+threshold while amortizing imports.
 
 Usage:
     python tools/run_tests.py            # whole suite

@@ -1,24 +1,16 @@
-"""Scalability sweep on synthetic structured bars (tb1 protocol).
+"""Scalability sweep on generated structured bars (tb1 protocol).
 
 The reference's tb1 horse sweep (input/tb1_horse_scalab/) scales one
 shape through 7K -> 136K vertices; those larger meshes are not shipped
 in the reference repo, so matched-size structured bars stand in
-(mesh_gen.bar_mesh, 6 Kuhn tets per cube).  For each size this tool
-generates the bar once (cached as .msh under output/scalab/meshes),
-writes a twist scene script, runs it through the production Simulator
-(DOT blockSize 1024 by default, same partitioning path as real scenes),
-and prints one JSON line with the steady sec/frame.
+(dot_tpu.scenes.BARS). For each size this tool generates the bar once
+(under output/scalab/meshes), writes a twist scene script, runs it
+through the production Simulator (DOT blockSize 1024 by default, same
+partitioning path as real scenes), and prints one JSON line with the
+steady sec/frame and the device it ran on.
 
     python tools/scalability.py bar17 bar35 bar69 bar135 bar265 \
         [--stepper "DOT -1 1024"] [--frames 8] [--warmup 2]
-
-Sizes (cells nx*ny*nz, 6 tets/cell):
-    bar17  =  56x16x16 ->  86K tets,  16.5K verts (bar17K-class)
-    bar35  =  80x20x20 -> 192K tets,  35.7K verts
-    bar69  = 104x25x25 -> 390K tets,  70.9K verts
-    bar135 = 131x31x31 -> 755K tets, 135.2K verts (horse136K-class)
-    bar265 = 165x39x39 -> 1.51M tets, 265.6K verts (2x the reference's
-             largest published scene class)
 """
 
 from __future__ import annotations
@@ -29,53 +21,17 @@ import os
 import sys
 import time
 
-SIZES = {
-    "bar17": (56, 16, 16),
-    "bar35": (80, 20, 20),
-    "bar69": (104, 25, 25),
-    "bar135": (131, 31, 31),
-    "bar265": (165, 39, 39),
-}
-
-SCENE_TMPL = """energy FCR
-timeStepper {stepper}
-warmStart 2
-resolution 1000
-size 1
-time 5 0.025
-density 1000
-stiffness 100000 0.4
-script twist
-shape input {mesh_path}
-{extra}"""
-
-
-def ensure_mesh(name, root):
-    from dot_tpu.mesh_gen import bar_mesh
-    from dot_tpu import io as meshio
-
-    path = os.path.join(root, "meshes", f"{name}.msh")
-    if os.path.exists(path):
-        return path
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    nx, ny, nz = SIZES[name]
-    # same aspect ratio as the reference bar (size 4:1:1 cells keeps
-    # the twist script's x-extent handles sensible)
-    m = bar_mesh(nx, ny, nz, size=(4.0, 1.0, 1.0))
-    meshio.save_tet_mesh(path, m.V, m.conn, m.SF)
-    return path
-
 
 def run_one(name, stepper, frames, warmup, root, extra=""):
+    import jax
     from dot_tpu.sim import Simulator, pick_dtype
     from dot_tpu.config import Config
+    from dot_tpu.scenes import write_bar_scene
 
-    mesh_path = ensure_mesh(name, root)
     tag = (stepper + extra).replace(" ", "_").replace("\n", "_")
-    scene = os.path.join(root, f"{name}_{tag}.txt")
-    with open(scene, "w") as f:
-        f.write(SCENE_TMPL.format(stepper=stepper, mesh_path=mesh_path,
-                          extra=(extra + "\n") if extra else ""))
+    scene = write_bar_scene(root, name, stepper=stepper,
+                            extra=[extra] if extra else (),
+                            name=f"{name}_{tag}")
 
     cfg = Config.load(scene)
     out = os.path.join(root, f"run_{name}_{tag}")
@@ -95,12 +51,18 @@ def run_one(name, stepper, frames, warmup, root, extra=""):
             "tets": int(sim.mesh.n_elem), "verts": int(sim.mesh.n_vert),
             "sec_per_frame": round(spf, 4),
             "iters_per_frame": round(iters, 2),
-            "build_s": round(build_s, 1)}
+            "build_s": round(build_s, 1),
+            "device": f"{jax.devices()[0].platform} "
+                      f"{jax.devices()[0].device_kind}"}
 
 
 def main(argv=None):
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from dot_tpu.scenes import BARS
+
     ap = argparse.ArgumentParser()
-    ap.add_argument("names", nargs="+", choices=sorted(SIZES))
+    ap.add_argument("names", nargs="+", choices=sorted(BARS))
     ap.add_argument("--stepper", default="DOT -1 1024")
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--warmup", type=int, default=2)
@@ -109,8 +71,6 @@ def main(argv=None):
                     help="extra scene-script line(s), e.g. 'applyDtype f32'")
     args = ap.parse_args(argv)
 
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
     os.makedirs(args.root, exist_ok=True)
     for name in args.names:
         try:

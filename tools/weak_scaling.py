@@ -3,14 +3,15 @@
 DOT step (fixed mesh, fixed n_parts=8 partition) sharded over 2/4/8
 virtual devices and report, per device count, the per-device memory,
 flops, and — the number that decides whether the design scales over
-ICI — the collective-traffic bytes the SPMD partitioner inserted (the
-replicated-vertex gradient reduction is the dominant site; see
-docs/MULTICHIP.md for the 755K-tet projection). Holding the partition
+the device interconnect — the collective-traffic bytes the SPMD
+partitioner inserted (the replicated-vertex gradient reduction is the
+dominant site; see docs/MULTICHIP.md). Holding the partition
 constant makes the rows apples-to-apples: same H0, same convergence,
 only the device axis varies.
 
 Runs each device count in a subprocess on the CPU backend (virtual
-host devices). Usage:  python tools/weak_scaling.py [out.json]
+host devices): these are counts from shapes, not times.
+Usage:  python tools/weak_scaling.py [out.json]
 """
 
 import json
